@@ -20,7 +20,7 @@ host numpy + the native BVH (the Embree analogue):
   (cpp/refiner.cc:274-506, cpp/pnp/lev_marq.h:391-871).
 
 Everything here is pure host compute (no JAX arrays are created), so it
-can run next to a TPU-backed process for side-by-side timing.  It
+can run next to an accelerator-backed process for side-by-side timing.  It
 doubles as the *independent implementation* for the end-to-end RMSE
 parity tests (tests/test_baseline_parity.py).
 """
@@ -215,7 +215,7 @@ class _BAProblem:
         cx, cy = float(intr.cx), float(intr.cy)
         for fid in range(first, last + 1):
             raw = db.read_keypoints(fid)
-            q, t = traj[fid]
+            q, t = traj[fid][:2]
             R = _rotmat(np.asarray(q, np.float64))
             cw = (corners @ self.model[:3, :3].T + self.model[:3, 3])
             cc = cw @ R.T + np.asarray(t, np.float64)
@@ -249,46 +249,18 @@ class _BAProblem:
                 )
 
         # Primitive cache: one closest-hit cast per (frame, keypoint)
-        # (cpp/refiner.cc:320-349).  Plane held fixed afterwards.
+        # (cpp/refiner.cc:320-349), the hit triangle's plane held fixed
+        # until the next refresh.
         self.kps = kps
-        plane_p, plane_n, prim_tri = {}, {}, {}
-        for fid in range(first, last + 1):
-            pts = kps[fid]
-            if pts.shape[0] == 0:
-                i = fid - first
-                z3 = np.zeros((0, 3))
-                plane_p[i] = (z3, z3, z3)
-                plane_n[i] = np.zeros(0, bool)
-                prim_tri[i] = np.zeros(0, np.uint32)
-                continue
-            q, t = traj[fid]
-            R = _rotmat(np.asarray(q, np.float64))
-            d_cam = _unproject(intr, pts)
-            d_world = d_cam @ R
-            origin_w = -(R.T @ np.asarray(t, np.float64))
-            origin_o = self.model_inv[:3, :3] @ origin_w \
-                + self.model_inv[:3, 3]
-            d_obj = d_world @ self.model_inv[:3, :3].T
-            pos, _n, _b, _t, prim = bvh.raycast(
-                np.broadcast_to(origin_o, d_obj.shape).astype(np.float32),
-                d_obj.astype(np.float32), masked_triangles,
-            )
-            i = fid - first
-            prim_tri[i] = prim
-            hit = prim != _INVALID
-            safe = np.where(hit, prim, 0)
-            t1 = verts[tris[safe, 0]].astype(np.float64)
-            t2 = verts[tris[safe, 1]].astype(np.float64)
-            t3 = verts[tris[safe, 2]].astype(np.float64)
-            self_tris = (t1, t2, t3)
-            plane_p[i] = self_tris
-            plane_n[i] = hit
-        self.tri_cache = plane_p   # i -> (t1, t2, t3) object space
-        self.hit_cache = plane_n   # i -> (K,) bool
+        self._bvh, self._verts, self._tris = bvh, verts, tris
+        self._masked = masked_triangles
+        cams0 = [
+            HostCam(*(tuple(traj[fid]) + (intr.fy, intr.cx, intr.cy))[:5])
+            for fid in range(first, last + 1)
+        ]
 
         # Flatten matches grouped by edge
-        sf_l, tf_l, spx_l, tpx_l = [], [], [], []
-        t1_l, t2_l, t3_l, hit_l = [], [], [], []
+        sf_l, tf_l, spx_l, tpx_l, idx_l = [], [], [], [], []
         self.edge_slices = []
         self.edge_weight = []
         pos = 0
@@ -298,9 +270,7 @@ class _BAProblem:
             tf_l.append(np.full(k, tf))
             spx_l.append(self.kps[first + sf][idx])
             tpx_l.append(tpx)
-            t1, t2, t3 = self.tri_cache[sf]
-            t1_l.append(t1[idx]); t2_l.append(t2[idx]); t3_l.append(t3[idx])
-            hit_l.append(self.hit_cache[sf][idx])
+            idx_l.append(idx)
             self.edge_slices.append((pos, pos + k))
             # FrameWeight of the source frame (cpp/refiner.cc:250-257)
             distance = min(sf, (self.F - 1) - sf)
@@ -312,18 +282,58 @@ class _BAProblem:
         self.tf = np.concatenate(tf_l).astype(np.int64)
         self.src_px = np.concatenate(spx_l)
         self.tgt_px = np.concatenate(tpx_l)
-        self.t1 = np.concatenate(t1_l)
-        self.t2 = np.concatenate(t2_l)
-        self.t3 = np.concatenate(t3_l)
-        self.prim_ok = np.concatenate(hit_l)
+        self.src_idx = np.concatenate(idx_l).astype(np.int64)
         self.edge_weight = np.asarray(self.edge_weight)
         self.n_matches = pos
+        self.anchor = np.zeros(self.F, bool)
+        self.anchor[0] = self.anchor[-1] = True
+        self.refresh(cams0)
+
+    def refresh(self, cams):
+        """Re-cast every (frame, keypoint) ray from ``cams`` and cache
+        the hit triangles (the refiner re-casts after each accepted
+        step, engine/refiner.py)."""
+        verts, tris = self._verts, self._tris
+        tri = {}
+        for i, c in enumerate(cams):
+            pts = self.kps[self.first + i]
+            if pts.shape[0] == 0:
+                z3 = np.zeros((0, 3))
+                tri[i] = (z3, z3, z3, np.zeros(0, bool))
+                continue
+            R = _rotmat(c.q)
+            s = self.sign
+            fx = c.fy * self.aspect
+            d_cam = np.stack(
+                [s * (pts[:, 0] - c.cx) / fx, s * (pts[:, 1] - c.cy) / c.fy,
+                 np.full(len(pts), s)], axis=-1)
+            d_world = d_cam @ R
+            origin_w = -(R.T @ c.t)
+            origin_o = self.model_inv[:3, :3] @ origin_w \
+                + self.model_inv[:3, 3]
+            d_obj = d_world @ self.model_inv[:3, :3].T
+            _pos, _n, _b, _t, prim = self._bvh.raycast(
+                np.broadcast_to(origin_o, d_obj.shape).astype(np.float32),
+                d_obj.astype(np.float32), self._masked,
+            )
+            hit = prim != _INVALID
+            safe = np.where(hit, prim, 0)
+            tri[i] = tuple(
+                verts[tris[safe, k]].astype(np.float64) for k in range(3)
+            ) + (hit,)
+        # Gather per match from its source frame's cache.
+        parts = [[], [], [], []]
+        for a, b in self.edge_slices:
+            sf = int(self.sf[a])
+            idx = self.src_idx[a:b]
+            for k in range(4):
+                parts[k].append(tri[sf][k][idx])
+        self.t1, self.t2, self.t3 = (np.concatenate(p) for p in parts[:3])
+        self.prim_ok = np.concatenate(parts[3])
         # World-space plane (fixed model transform)
         self.t1w = self.t1 @ self.model[:3, :3].T + self.model[:3, 3]
         nrm_o = np.cross(self.t2 - self.t1, self.t3 - self.t1)
         self.nw = nrm_o @ self.model_inv[:3, :3]
-        self.anchor = np.zeros(self.F, bool)
-        self.anchor[0] = self.anchor[-1] = True
 
     # -- evaluation ---------------------------------------------------------
 
@@ -517,8 +527,9 @@ def cpu_refine_trajectory(
 ) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
     """Block-sparse LM bundle adjustment (lev_marq.h:391-871) on host.
 
-    Returns ``(refined {fid: (q, t)}, final cost)``; ``traj`` is not
-    modified.  When
+    ``traj`` values are ``(q, t)``, starting from ``intr``'s focal and
+    principal point, or ``(q, t, fy, cx, cy)``.  Returns ``(refined
+    {fid: (q, t, fy, cx, cy)}, final cost)``; ``traj`` is not modified.  When
     intrinsics are optimized the shared-per-frame (fy, cx, cy) ride in
     the per-camera blocks exactly like the reference (9 params/camera).
     """
@@ -537,8 +548,7 @@ def cpu_refine_trajectory(
     loss_scale = float(bundle_opts.loss_scale)
 
     cams = [
-        HostCam(traj[first + i][0], traj[first + i][1],
-                intr.fy, intr.cx, intr.cy)
+        HostCam(*(tuple(traj[first + i]) + (intr.fy, intr.cx, intr.cy))[:5])
         for i in range(F)
     ]
 
@@ -624,7 +634,11 @@ def cpu_refine_trajectory(
             actual = cost_new - cost
             expected = float(np.dot(step, 2.0 * Jtr + JtJ @ step))
             rho = actual / expected if expected else 0.0
-            cams, cost = cams_new, cost_new
+            cams = cams_new
+            # Parameters moved: re-cast the intersection cache, as the
+            # refiner does after each accepted step.
+            prob.refresh(cams)
+            cost = prob.cost(cams, loss_type, loss_scale)
             if rho > 0:
                 factor = max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
                 lam = float(np.clip(lam * factor, b.min_lambda,
@@ -642,7 +656,8 @@ def cpu_refine_trajectory(
         it += 1
 
     return {
-        first + i: (c.q.copy(), c.t.copy()) for i, c in enumerate(cams)
+        first + i: (c.q.copy(), c.t.copy(), c.fy, c.cx, c.cy)
+        for i, c in enumerate(cams)
     }, cost
 
 
@@ -664,14 +679,16 @@ def reprojection_rmse(
     masked_triangles: Optional[np.ndarray] = None,
 ) -> float:
     """RMS reprojection error of a trajectory over every DB flow edge in
-    [first, last] (residual definition of cpp/refiner.cc:274-361)."""
+    [first, last] (residual definition of cpp/refiner.cc:274-361).
+
+    ``traj`` values are ``(q, t)``, with ``intr``'s focal and principal
+    point, or ``(q, t, fy, cx, cy)`` for per-frame intrinsics."""
     prob = _BAProblem(
         db, traj, first, last, model_matrix, bvh, intr, masked_triangles,
         verts, tris,
     )
     cams = [
-        HostCam(traj[first + i][0], traj[first + i][1],
-                intr.fy, intr.cx, intr.cy)
+        HostCam(*(tuple(traj[first + i]) + (intr.fy, intr.cx, intr.cy))[:5])
         for i in range(prob.F)
     ]
     res, valid, _, _ = prob.evaluate(cams, False, False, False)

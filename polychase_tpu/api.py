@@ -1,6 +1,6 @@
 """The ``polychase_core``-shaped public API surface.
 
-This module re-exposes the TPU engine behind the exact class/function
+This module re-exposes the JAX engine behind the exact class/function
 names, argument names and defaults of the reference's pybind11 module
 (cpp/polychase_pybind.cc:29-348), so the Blender addon side can import it
 as a drop-in ``polychase_core`` replacement.
@@ -17,6 +17,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from .compile_cache import configure_compile_cache
 from .engine import camera as _camera
 from .engine import pose as _pose
 from .engine import geometry as _geometry
@@ -32,6 +33,8 @@ from .engine import trajectory as _trajectory
 from .io import database as _database
 
 import jax.numpy as jnp
+
+configure_compile_cache()
 
 __all__ = [
     "Mesh", "AcceleratedMesh", "SceneTransformations", "RayHit", "PinUpdate",
@@ -708,7 +711,7 @@ def refine_trajectory(
 
 
 # ---------------------------------------------------------------------------
-# Polychase-TPU extensions (beyond the reference pybind surface)
+# Extensions beyond the reference pybind surface
 # ---------------------------------------------------------------------------
 
 

@@ -1,6 +1,6 @@
 """Pinhole camera model with analytic Jacobians, OpenGL/OpenCV conventions.
 
-TPU-native rebuild of the reference camera model (cpp/pnp/types.h:13-198).
+Rebuild of the reference camera model (cpp/pnp/types.h:13-198).
 ``CameraIntrinsics`` is a jit-compatible pytree; the convention is carried as
 a float sign ``s`` (+1 for OpenCV looking down +Z, -1 for OpenGL looking down
 -Z), replacing the reference's enum branch (cpp/pnp/types.h:95-132).

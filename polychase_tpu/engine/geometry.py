@@ -1,6 +1,6 @@
 """Geometry primitives: triangles, planes, rays, bboxes, meshes.
 
-TPU-native rebuild of cpp/geometry.h.  The ``Mesh`` pytree keeps vertices,
+Rebuild of cpp/geometry.h.  The ``Mesh`` pytree keeps vertices,
 triangle indices and the packed triangle bitmask as JAX arrays so that
 masking is a vectorized bit test on device (cpp/geometry.h:114-151).
 """
@@ -120,27 +120,3 @@ TRANSFORM_CAMERA = 0
 TRANSFORM_MODEL = 1
 
 
-def transform_points(mat4: jax.Array, pts: jax.Array) -> jax.Array:
-    """Apply a homogeneous 4×4 to (..., 3) points."""
-    return pts @ mat4[:3, :3].T + mat4[:3, 3]
-
-
-def transform_bbox(bbox: Bbox3, mat4: jax.Array) -> Bbox2:
-    """Project the 8 bbox corners through a 4×4 and take the 2D extent
-    (cpp/refiner.cc:18-51).  Uses hnormalized (divide by w)."""
-    lo, hi = bbox.pmin, bbox.pmax
-    corners = jnp.stack(
-        [
-            jnp.stack([lo[0], lo[1], lo[2]]),
-            jnp.stack([lo[0], lo[1], hi[2]]),
-            jnp.stack([lo[0], hi[1], lo[2]]),
-            jnp.stack([lo[0], hi[1], hi[2]]),
-            jnp.stack([hi[0], lo[1], lo[2]]),
-            jnp.stack([hi[0], lo[1], hi[2]]),
-            jnp.stack([hi[0], hi[1], lo[2]]),
-            jnp.stack([hi[0], hi[1], hi[2]]),
-        ]
-    )
-    hom = jnp.concatenate([corners, jnp.ones((8, 1))], axis=-1) @ mat4.T
-    xy = hom[:, :2] / hom[:, 3:4]
-    return Bbox2(jnp.min(xy, axis=0), jnp.max(xy, axis=0))

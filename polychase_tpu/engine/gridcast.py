@@ -1,6 +1,6 @@
 """Uniform-grid accelerated ray casting on device.
 
-TPU-native analogue of the reference's Embree BVH
+Device analogue of the reference's Embree BVH
 (cpp/ray_casting.cc:21-121).  A BVH's per-ray recursive traversal with a
 node stack is hostile to a lockstep vector machine, so the acceleration
 structure here is a uniform voxel grid:
@@ -12,8 +12,8 @@ structure here is a uniform voxel grid:
 - **Traverse** (device): all N rays walk the grid in lockstep with the
   Amanatides–Woo 3D-DDA inside ONE ``lax.while_loop``.  Each iteration a
   ray either tests a small block of its current cell's candidate
-  triangles (gather + batched Möller–Trumbore across all rays on the
-  VPU) or steps to the next cell.  A ray terminates when its best hit
+  triangles (gather + batched Möller–Trumbore across all rays) or
+  steps to the next cell.  A ray terminates when its best hit
   lies before the exit of the current cell — because binning is
   conservative, every triangle intersecting the ray closer than that has
   already been tested — so the result is EXACT closest-hit, bit-matching
@@ -139,8 +139,7 @@ def build_grid_accel(
     if n_items == 0:
         items = np.zeros(1, np.int32)
     # Pre-gathered per-item triangle data so the traversal loop does ONE
-    # wide gather per candidate instead of four narrow ones (TPU gathers
-    # are row-granular; width is nearly free, count is not).
+    # wide gather per candidate instead of four narrow ones.
     pf = p.astype(np.float32)
     item_data = np.zeros((items.shape[0], 12), np.float32)
     ids = items if n_items else np.zeros(1, np.int64)

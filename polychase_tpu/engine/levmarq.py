@@ -1,10 +1,10 @@
-"""Batched Levenberg–Marquardt on TPU.
+"""Batched Levenberg–Marquardt on the device.
 
-TPU-native rebuild of the reference's generic LM machinery
+Rebuild of the reference's generic LM machinery
 (cpp/pnp/lev_marq.h:99-389, itself modeled on PoseLib's lm_impl.h).  The
 design inverts the reference's per-residual TBB loop: residuals and
 Jacobians are evaluated for *all* observations at once with ``vmap``-style
-batched math, normal equations are reduced with einsums (MXU-friendly), and
+batched math, normal equations are reduced with einsums, and
 the outer LM iteration is a ``lax.while_loop`` so the whole solve is one XLA
 program — no host round-trips per iteration.
 
@@ -32,6 +32,8 @@ from typing import Callable, NamedTuple
 import jax
 import jax.numpy as jnp
 
+_HI = jax.lax.Precision.HIGHEST
+
 # Loss types (mirrors BundleOptions::LossType, cpp/pnp/types.h:203-207)
 TRIVIAL = 0
 HUBER = 1
@@ -42,7 +44,7 @@ class BundleOptions(NamedTuple):
     """Solver options (cpp/pnp/types.h:200-215).
 
     ``loss_type`` must be a static Python int (dispatch happens at trace
-    time).  ``max_allowed_parallelism`` has no TPU meaning (XLA owns the
+    time).  ``max_allowed_parallelism`` has no meaning here (XLA owns the
     parallelism) and is accepted for API compatibility only.
     """
 
@@ -65,8 +67,8 @@ class BundleOptions(NamedTuple):
     # loop also burns a λ-doubling rejection tail (~7-9 iterations that
     # can never change the parameters — each rejection only scales λ)
     # before `step_norm < step_tol` fires; on CPU those tail iterations
-    # are nanoseconds, inside a TPU `lax.while_loop` they are the
-    # dominant tracking cost.  The tracker opts in (engine/tracker.py,
+    # are nanoseconds, inside a device `lax.while_loop` each is a trip
+    # of kernel launches.  The tracker opts in (engine/tracker.py,
     # POLYCHASE_TRACK_FTOL).
     function_tol: float = 0.0
 
@@ -156,8 +158,8 @@ def damped_block_tridiag_solve(JtJ, Jtr, lam, *, nb: int, bs: int):
     pattern an edge couples frames at most 8 apart, so grouping 8 frames
     per super-block makes the system block-TRIDIAGONAL with ``nb``
     diagonal blocks of size ``bs``.  A dense Cholesky of the full
-    (nb·bs)² matrix is the measured bound of the refine LM iteration
-    (BENCHMARKS.md roofline: ~3.8 GFLOP and a sequential panel chain);
+    (nb·bs)² matrix is ~3.8 GFLOP and a sequential panel chain per
+    refine LM iteration at 250 frames;
     the block-tridiagonal factorization is a ``lax.scan`` of nb small
     Cholesky/triangular steps — ~40× less work at 250 frames.
 
@@ -188,7 +190,7 @@ def damped_block_tridiag_solve(JtJ, Jtr, lam, *, nb: int, bs: int):
         L = jnp.linalg.cholesky(D_i - CCt)
         # C_i = E_i · L^{-T}; carry C_i·C_iᵀ into the next block.
         Ct = solve_tri(L, E_i.T, lower=True)      # = C_iᵀ
-        return Ct.T @ Ct, (L, Ct)
+        return jnp.matmul(Ct.T, Ct, precision=_HI), (L, Ct)
 
     _, (L_all, Ct_all) = jax.lax.scan(
         factor, jnp.zeros((bs, bs), As.dtype), (D, E_ext)
@@ -200,7 +202,9 @@ def damped_block_tridiag_solve(JtJ, Jtr, lam, *, nb: int, bs: int):
 
     def forward(y_prev, inp):
         L_i, Ctp, b_i = inp
-        y = solve_tri(L_i, b_i - Ctp.T @ y_prev, lower=True)
+        y = solve_tri(
+            L_i, b_i - jnp.matmul(Ctp.T, y_prev, precision=_HI), lower=True
+        )
         return y, y
 
     _, y_all = jax.lax.scan(
@@ -209,7 +213,9 @@ def damped_block_tridiag_solve(JtJ, Jtr, lam, *, nb: int, bs: int):
 
     def backward(x_next, inp):
         L_i, Ct_i, y_i = inp
-        x = solve_tri(L_i.T, y_i - Ct_i @ x_next, lower=False)
+        x = solve_tri(
+            L_i.T, y_i - jnp.matmul(Ct_i, x_next, precision=_HI), lower=False
+        )
         return x, x
 
     _, x_all = jax.lax.scan(
@@ -334,9 +340,8 @@ def lm_solve(problem: LMProblem, params0, opts: BundleOptions):
         # Nielsen update on acceptance (cpp/pnp/lev_marq.h:179-197)
         actual = cost_new - s.cost
         expected = jnp.dot(
-            step,
-            2.0 * s.Jtr
-            + jnp.dot(s.JtJ, step, precision=jax.lax.Precision.HIGHEST),
+            step, 2.0 * s.Jtr + jnp.dot(s.JtJ, step, precision=_HI),
+            precision=_HI,
         )
         rho = actual / expected
         factor = jnp.maximum(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)

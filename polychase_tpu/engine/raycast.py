@@ -1,12 +1,12 @@
 """Batched ray casting against triangle meshes, with analytic Jacobians.
 
-TPU-native replacement for the reference's Embree path
+Device replacement for the reference's Embree path
 (cpp/ray_casting.{h,cc}).  Two modes are provided:
 
 - :func:`raycast` — brute-force batched Möller–Trumbore: every ray is tested
-  against every triangle in VMEM-sized chunks via ``lax.scan``, keeping the
-  closest hit.  This is exact and maps well onto the VPU for meshes up to a
-  few hundred thousand triangles.  (A host-side C++ BVH in
+  against every triangle in fixed-size chunks via ``lax.scan``, keeping the
+  closest hit.  This is exact and data-parallel for meshes up to a few
+  hundred thousand triangles.  (A host-side C++ BVH in
   ``polychase_tpu/native`` covers the single-ray low-latency picking path.)
 - :func:`intersect_ray_plane_jac` / :func:`intersect_ray_triangle` — the
   differentiable single-primitive intersections used by bundle adjustment
@@ -189,10 +189,8 @@ def raycast_grouped(
         chunk = max(64, min(4096, (1 << 25) // max(G * K, 1)))
         chunk = max(64, (chunk // 64) * 64)
         if num_tris < chunk:
-            # Small mesh: don't sweep padding.  The next power-of-two
-            # cover wins over tighter multiples of 128 on TPU (measured:
-            # 1472 tris at G·K=4096 — cover 2048 = 0.42 ms/cast, the
-            # 4096 default = 0.65, the tightest multiple 1536 = 0.60).
+            # Small mesh: don't sweep padding; cover it with the next
+            # power of two (not measured on the GPU).
             cover = 64
             while cover < num_tris:
                 cover *= 2
@@ -240,7 +238,7 @@ def raycast_grouped(
 
         # Contractions over the 3-dim as explicit broadcast FMAs: XLA
         # fuses them with the tests below into one pass over (G, K, Tc)
-        # (einsum with inner dim 3 routes through a slow padded-MXU path).
+        # (an einsum with inner dim 3 would become a tiny matmul).
         def dot3(x0, x1, x2):  # each (G, 1, Tc) or (1, 1, Tc) -> (G, K, Tc)
             return d0 * x0 + d1 * x1 + d2 * x2
 

@@ -143,8 +143,8 @@ class Database:
         """Batch every write inside the block into ONE sqlite commit.
 
         The analyze loop writes 1 keypoint row + up to 8 flow rows per
-        frame; per-write commits cost ~2.7 ms/frame of the 1-core
-        host's budget (BENCHMARKS.md stage table).  Durability
+        frame; per-write commits would cost milliseconds per frame of
+        host time.  Durability
         granularity becomes the with-block (per frame in the analyze
         loop) — the same resume granularity the reference gets from its
         per-pair transactions, since a torn frame is simply re-analyzed.

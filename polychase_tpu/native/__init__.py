@@ -1,15 +1,19 @@
 """Native host components: C++ BVH ray caster with a ctypes binding.
 
-The shared library is compiled on first use (g++ -O3) into this package
-directory; when a compiler is unavailable the callers fall back to the
-device-side batched ray cast, so the native path is a pure acceleration.
+The shared library is not shipped in the source tree: it is compiled
+from ``bvh.cc`` on first use (g++ -O3 -march=native) into this package
+directory, or ahead of time with ``scripts/build_native.sh``.  When the
+build fails the reason is logged and callers fall back to the device-side
+batched ray cast and numpy, so the native path is a pure acceleration.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -22,6 +26,38 @@ _LIB_FAILED = False
 _SRC = os.path.join(os.path.dirname(__file__), "bvh.cc")
 _SO = os.path.join(os.path.dirname(__file__), "_bvh.so")
 
+_log = logging.getLogger(__name__)
+
+
+def build_library(out_path: str = _SO, arch: str = "-march=native") -> str:
+    """Compile ``bvh.cc`` into ``out_path``.
+
+    The compiler writes a temporary file beside the target, which then
+    replaces it in one rename, so processes that build at once never
+    load a half-written library.  Raises ``RuntimeError`` with the
+    compiler's message when the build fails."""
+    fd, tmp = tempfile.mkstemp(
+        suffix=".so", dir=os.path.dirname(os.path.abspath(out_path))
+    )
+    os.close(fd)
+    try:
+        r = subprocess.run(
+            ["g++", "-O3", arch, "-shared", "-fPIC", "-std=c++17", _SRC,
+             "-o", tmp],
+            capture_output=True, text=True,
+        )
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"g++ failed ({r.returncode}): {r.stderr.strip()[-2000:]}"
+            )
+        os.replace(tmp, out_path)
+    except OSError as e:
+        raise RuntimeError(f"cannot build {out_path}: {e}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out_path
+
 
 def _load_library() -> Optional[ctypes.CDLL]:
     global _LIB, _LIB_FAILED
@@ -32,14 +68,7 @@ def _load_library() -> Optional[ctypes.CDLL]:
             if not os.path.exists(_SO) or (
                 os.path.getmtime(_SO) < os.path.getmtime(_SRC)
             ):
-                subprocess.run(
-                    [
-                        "g++", "-O3", "-march=native", "-shared", "-fPIC",
-                        "-std=c++17", _SRC, "-o", _SO,
-                    ],
-                    check=True,
-                    capture_output=True,
-                )
+                build_library()
             lib = ctypes.CDLL(_SO)
             lib.bvh_build.restype = ctypes.c_void_p
             lib.bvh_build.argtypes = [
@@ -54,7 +83,11 @@ def _load_library() -> Optional[ctypes.CDLL]:
                 ctypes.c_void_p,
             ]
             _LIB = lib
-        except Exception:
+        except (RuntimeError, OSError, AttributeError) as e:
+            _log.warning(
+                "native BVH library unavailable, falling back to the "
+                "device ray cast and numpy: %s", e,
+            )
             _LIB_FAILED = True
             _LIB = None
         return _LIB
@@ -85,9 +118,7 @@ def native_fn(name: str, restype, argtypes):
             fn.restype = restype
             fn.argtypes = argtypes
         else:
-            import logging
-
-            logging.getLogger(__name__).info(
+            _log.info(
                 "native symbol %s unavailable; numpy fallback in use", name
             )
         _FN_CACHE[name] = fn

@@ -2,11 +2,15 @@
 //
 // Replaces the reference's Embree 4 dependency (cpp/ray_casting.cc:21-121)
 // for the latency-critical host paths: single-ray viewport picking and
-// small-batch casts where a TPU round-trip would dominate.  The bulk
+// small-batch casts where a device round trip would dominate.  The bulk
 // batched casts (tracking, BA prim refresh) stay on the accelerator.
 //
 // Design: binned-SAH BVH (16 bins), max 4 triangles per leaf, iterative
-// stack traversal, Möller–Trumbore intersection, closest-hit semantics
+// stack traversal, Möller–Trumbore intersection in double precision on
+// the float vertices with a barycentric slack far below float resolution
+// (so a ray through an edge two triangles share hits one of them, as in
+// Embree's watertight test; a float32 test lets such rays slip through
+// to the far side of a closed mesh), closest-hit semantics
 // with the reference's masked-triangle rule — the nearest hit is found
 // over all triangles and *then* discarded if masked, so masked geometry
 // still occludes (cpp/ray_casting.cc:100-120).
@@ -69,7 +73,7 @@ struct Node {
 };
 
 struct Bvh {
-    std::vector<Vec3> p1, e1, e2;   // pretransformed triangle data
+    std::vector<Vec3> p1, p2, p3;   // triangle corners in BVH order
     std::vector<uint32_t> prim_id;  // BVH order → original triangle id
     std::vector<Node> nodes;
     uint32_t num_tris = 0;
@@ -195,6 +199,9 @@ inline bool intersect_aabb(const Aabb& b, const Vec3& o, const Vec3& inv_d,
     float tz1 = (b.lo.z - o.z) * inv_d.z, tz2 = (b.hi.z - o.z) * inv_d.z;
     tmin = std::max(tmin, std::min(tz1, tz2));
     tmax = std::min(tmax, std::max(tz1, tz2));
+    // Widen the far end by the slab test's rounding (PBRT's 1 + 2·γ₃) so
+    // a ray grazing a box face still visits the triangles inside it.
+    tmax *= 1.0f + 2.0f * 3.0f * std::numeric_limits<float>::epsilon();
     return tmax >= std::max(tmin, 0.0f) && tmin < t_max;
 }
 
@@ -214,10 +221,10 @@ void* bvh_build(const float* vertices, uint32_t num_vertices,
 
     std::vector<BuildPrim> prims(num_triangles);
     bvh->p1.resize(num_triangles);
-    bvh->e1.resize(num_triangles);
-    bvh->e2.resize(num_triangles);
-    std::vector<Vec3> p1_orig(num_triangles), e1_orig(num_triangles),
-        e2_orig(num_triangles);
+    bvh->p2.resize(num_triangles);
+    bvh->p3.resize(num_triangles);
+    std::vector<Vec3> p1_orig(num_triangles), p2_orig(num_triangles),
+        p3_orig(num_triangles);
     for (uint32_t i = 0; i < num_triangles; i++) {
         const uint32_t* t = triangles + 3 * i;
         const Vec3 a{vertices[3 * t[0]], vertices[3 * t[0] + 1],
@@ -227,8 +234,8 @@ void* bvh_build(const float* vertices, uint32_t num_vertices,
         const Vec3 c{vertices[3 * t[2]], vertices[3 * t[2] + 1],
                      vertices[3 * t[2] + 2]};
         p1_orig[i] = a;
-        e1_orig[i] = b - a;
-        e2_orig[i] = c - a;
+        p2_orig[i] = b;
+        p3_orig[i] = c;
         prims[i].bounds.grow(a);
         prims[i].bounds.grow(b);
         prims[i].bounds.grow(c);
@@ -243,8 +250,8 @@ void* bvh_build(const float* vertices, uint32_t num_vertices,
     for (uint32_t i = 0; i < num_triangles; i++) {
         bvh->prim_id[i] = prims[i].id;
         bvh->p1[i] = p1_orig[prims[i].id];
-        bvh->e1[i] = e1_orig[prims[i].id];
-        bvh->e2[i] = e2_orig[prims[i].id];
+        bvh->p2[i] = p2_orig[prims[i].id];
+        bvh->p3[i] = p3_orig[prims[i].id];
     }
     return bvh;
 }
@@ -259,15 +266,20 @@ void bvh_raycast(const void* handle, const float* origins, const float* dirs,
                  uint32_t* prim_out) {
     const Bvh& bvh = *static_cast<const Bvh*>(handle);
     constexpr uint32_t kInvalid = 0xFFFFFFFFu;
-    constexpr float kEps = 1e-10f;
+    constexpr double kEps = 1e-10;
+    // Barycentric slack that covers the double test's own rounding, so a
+    // ray exactly on a shared edge is taken by at least one side.
+    constexpr double kBaryTol = 1e-9;
 
     for (uint32_t r = 0; r < n; r++) {
         const Vec3 o{origins[3 * r], origins[3 * r + 1], origins[3 * r + 2]};
         const Vec3 d{dirs[3 * r], dirs[3 * r + 1], dirs[3 * r + 2]};
         const Vec3 inv_d{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
 
-        float best_t = std::numeric_limits<float>::infinity();
-        float best_u = 0, best_v = 0;
+        const double ox = o.x, oy = o.y, oz = o.z;
+        const double dx = d.x, dy = d.y, dz = d.z;
+        double best_t = std::numeric_limits<double>::infinity();
+        double best_u = 0, best_v = 0;
         uint32_t best_local = kInvalid;
 
         if (!bvh.nodes.empty() && bvh.num_tris) {
@@ -276,25 +288,42 @@ void bvh_raycast(const void* handle, const float* origins, const float* dirs,
             stack[sp++] = 0;
             while (sp) {
                 const Node& node = bvh.nodes[stack[--sp]];
-                if (!intersect_aabb(node.bounds, o, inv_d, best_t)) continue;
+                if (!intersect_aabb(node.bounds, o, inv_d,
+                                    static_cast<float>(best_t)))
+                    continue;
                 if (node.count) {  // leaf
                     for (int i = node.first; i < node.first + node.count;
                          i++) {
-                        const Vec3& p1 = bvh.p1[i];
-                        const Vec3& e1 = bvh.e1[i];
-                        const Vec3& e2 = bvh.e2[i];
-                        const Vec3 pv = cross(d, e2);
-                        const float det = dot(e1, pv);
+                        const Vec3& a = bvh.p1[i];
+                        const Vec3& b = bvh.p2[i];
+                        const Vec3& c = bvh.p3[i];
+                        // Float differences are exact in double.
+                        const double e1x = double(b.x) - a.x,
+                                     e1y = double(b.y) - a.y,
+                                     e1z = double(b.z) - a.z;
+                        const double e2x = double(c.x) - a.x,
+                                     e2y = double(c.y) - a.y,
+                                     e2z = double(c.z) - a.z;
+                        const double pvx = dy * e2z - dz * e2y,
+                                     pvy = dz * e2x - dx * e2z,
+                                     pvz = dx * e2y - dy * e2x;
+                        const double det = e1x * pvx + e1y * pvy + e1z * pvz;
                         if (std::fabs(det) < kEps) continue;
-                        const float inv_det = 1.0f / det;
-                        const Vec3 s = o - p1;
-                        const float u = dot(s, pv) * inv_det;
-                        if (u < 0.0f || u > 1.0f) continue;
-                        const Vec3 qv = cross(s, e1);
-                        const float v = dot(d, qv) * inv_det;
-                        if (v < 0.0f || u + v > 1.0f) continue;
-                        const float t = dot(e2, qv) * inv_det;
-                        if (t > 0.0f && t < best_t) {
+                        const double inv_det = 1.0 / det;
+                        const double sx = ox - a.x, sy = oy - a.y,
+                                     sz = oz - a.z;
+                        const double u =
+                            (sx * pvx + sy * pvy + sz * pvz) * inv_det;
+                        if (u < -kBaryTol || u > 1.0 + kBaryTol) continue;
+                        const double qx = sy * e1z - sz * e1y,
+                                     qy = sz * e1x - sx * e1z,
+                                     qz = sx * e1y - sy * e1x;
+                        const double v = (dx * qx + dy * qy + dz * qz) * inv_det;
+                        if (v < -kBaryTol || u + v > 1.0 + kBaryTol)
+                            continue;
+                        const double t =
+                            (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+                        if (t > 0.0 && t < best_t) {
                             best_t = t;
                             best_u = u;
                             best_v = v;
@@ -319,8 +348,9 @@ void bvh_raycast(const void* handle, const float* origins, const float* dirs,
         }
 
         if (prim != kInvalid) {
-            const Vec3 p = o + d * best_t;
-            Vec3 ng = cross(bvh.e1[best_local], bvh.e2[best_local]);
+            const Vec3 p = o + d * static_cast<float>(best_t);
+            const Vec3& a = bvh.p1[best_local];
+            Vec3 ng = cross(bvh.p2[best_local] - a, bvh.p3[best_local] - a);
             const float len =
                 std::sqrt(std::max(dot(ng, ng), 1e-30f));
             ng = ng * (1.0f / len);
@@ -330,9 +360,9 @@ void bvh_raycast(const void* handle, const float* origins, const float* dirs,
             normal_out[3 * r] = ng.x;
             normal_out[3 * r + 1] = ng.y;
             normal_out[3 * r + 2] = ng.z;
-            bary_out[2 * r] = best_u;
-            bary_out[2 * r + 1] = best_v;
-            t_out[r] = best_t;
+            bary_out[2 * r] = static_cast<float>(best_u);
+            bary_out[2 * r + 1] = static_cast<float>(best_v);
+            t_out[r] = static_cast<float>(best_t);
             prim_out[r] = prim;
         } else {
             std::memset(pos_out + 3 * r, 0, 3 * sizeof(float));
@@ -560,9 +590,8 @@ extern "C" void gftt_quality_order(
 // Tracking-chain chunk packer (engine/tracker._track_chunked_scan).
 //
 // The scan chain's host floor is per-chunk numpy packing: ~256 fancy-index
-// gathers + slice writes + a per-frame quantization pass per 32-frame chunk
-// (measured 0.87 ms/frame on the 1-core bench host — BENCHMARKS.md round-5
-// decomposition).  This fuses the whole pack — keypoint-index copy, delta
+// gathers + slice writes + a per-frame quantization pass per 32-frame chunk.
+// This fuses the whole pack — keypoint-index copy, delta
 // gather against the clip keypoint table, max-|delta| scan and i16
 // quantization — into one C pass per chunk.  Bit-exact with the numpy path
 // (tests/test_tracker.py pins both formats): deltas in f32, scale m/32700.0

@@ -1,8 +1,8 @@
-"""Multi-chip sharding of the Analyze (optical-flow) fan-out.
+"""Multi-device sharding of the Analyze (optical-flow) fan-out.
 
 SURVEY §2.4 row 1: the reference's per-skip-pair TBB pool
 (cpp/opticalflow.cc:269-309) maps to sharding the *target-frame axis* of
-the multi-target LK solve over a 1-D device mesh — each chip tracks the
+the multi-target LK solve over a 1-D device mesh — each device tracks the
 shared source frame's features into its shard of the ±{1,2,4,8} skip
 targets.  There is no cross-target communication, so the only collective
 cost is the result gather.
@@ -85,7 +85,7 @@ def shard_targets(mesh: Mesh, stacked) -> tuple:
 # Feature-axis sharding: the axis that actually grows (a 4K noise frame
 # keeps ~170k corners while T is capped at 8 by the skip pattern).
 # Features are independent, so there are no collectives; target images
-# are replicated across the mesh and each chip iterates its feature
+# are replicated across the mesh and each device iterates its feature
 # shard into every target.
 # ---------------------------------------------------------------------------
 
@@ -129,260 +129,42 @@ def sharded_lk_multi_feat(
     return fn(pts)
 
 
-def _sharded_lk_multi_pallas_feat(
-    mesh: Mesh,
-    prev_levels,            # per level: (img_pad, dx_pad, dy_pad)
-    next_images_stacked,    # per level: (T, Hp, Wp) — replicated
-    pts,                    # (N, 2) — sharded on N
-    *,
-    dims,
-    win: int,
-    max_iters: int,
-    eps2: float,
-    min_eig_thr: float,
-    interpret: bool = False,
-    blend: str = "tent",
-    coarse_cap: int = 0,
-    coarse_eps: float = 0.0,
-):
-    """Feature-sharded Analyze over the Pallas kernel path.
-
-    Each chip runs the full coarse-to-fine Pallas program for its feature
-    shard into ALL targets.  ``N`` must be a multiple of mesh size × the
-    kernel's 128-lane group."""
-    from ..kernels.lk_pallas import lk_all_levels_pallas
-
-    feat = PSpec(TARGET_AXIS)
-
-    def body(pts_local):
-        return lk_all_levels_pallas(
-            prev_levels, next_images_stacked, pts_local,
-            dims=dims, win=win, max_iters=max_iters, eps2=eps2,
-            min_eig_thr=min_eig_thr, interpret=interpret, blend=blend,
-            coarse_cap=coarse_cap, coarse_eps=coarse_eps,
-        )
-
-    fn = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(feat,),
-        out_specs=(
-            PSpec(None, TARGET_AXIS),
-            PSpec(None, TARGET_AXIS),
-            PSpec(None, TARGET_AXIS),
-        ),
-        check_vma=False,
-    )
-    return fn(pts)
-
-
-_sharded_lk_multi_pallas_feat_jit = partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "dims", "win", "max_iters", "eps2", "min_eig_thr",
-        "interpret", "blend", "coarse_cap", "coarse_eps",
-    ),
-)(_sharded_lk_multi_pallas_feat)
-
-
-def sharded_lk_multi_pallas_feat(mesh, prev_levels, next_images_stacked,
-                                 pts, **kw):
-    """Jitted on real backends; interpret mode (CPU tests) stays eager —
-    jit-of-shard_map-of-interpreted-pallas miscomputes."""
-    fn = (
-        _sharded_lk_multi_pallas_feat
-        if kw.get("interpret") else _sharded_lk_multi_pallas_feat_jit
-    )
-    return fn(mesh, prev_levels, next_images_stacked, pts, **kw)
-
-
-def _sharded_lk_multi_pallas(
-    mesh: Mesh,
-    prev_levels,            # per level: (img_pad, dx_pad, dy_pad)
-    next_images_stacked,    # per level: (T, Hp, Wp) — sharded on T
-    pts,
-    *,
-    dims,
-    win: int,
-    max_iters: int,
-    eps2: float,
-    min_eig_thr: float,
-    interpret: bool = False,
-    blend: str = "tent",
-    coarse_cap: int = 0,
-    coarse_eps: float = 0.0,
-):
-    """Target-sharded Analyze over the Pallas kernel path.
-
-    Each device runs the full coarse-to-fine Pallas program on its local
-    shard of the stacked target images (kernels/lk_pallas.py); the prep
-    kernel runs replicated per device.  ``T`` must divide the mesh size.
-    """
-    from ..kernels.lk_pallas import lk_all_levels_pallas
-
-    target = PSpec(TARGET_AXIS)
-
-    def body(next_images_local):
-        return lk_all_levels_pallas(
-            prev_levels, next_images_local, pts,
-            dims=dims, win=win, max_iters=max_iters, eps2=eps2,
-            min_eig_thr=min_eig_thr, interpret=interpret, blend=blend,
-            coarse_cap=coarse_cap, coarse_eps=coarse_eps,
-        )
-
-    fn = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(tuple(target for _ in next_images_stacked),),
-        out_specs=(target, target, target),
-        check_vma=False,
-    )
-    return fn(next_images_stacked)
-
-
-_sharded_lk_multi_pallas_jit = partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "dims", "win", "max_iters", "eps2", "min_eig_thr",
-        "interpret", "blend", "coarse_cap", "coarse_eps",
-    ),
-)(_sharded_lk_multi_pallas)
-
-
-def sharded_lk_multi_pallas(mesh, prev_levels, next_images_stacked, pts,
-                            **kw):
-    """Jitted on real backends; interpret mode (CPU tests) stays eager —
-    jit-of-shard_map-of-interpreted-pallas miscomputes."""
-    fn = (
-        _sharded_lk_multi_pallas
-        if kw.get("interpret") else _sharded_lk_multi_pallas_jit
-    )
-    return fn(mesh, prev_levels, next_images_stacked, pts, **kw)
-
-
 # ---------------------------------------------------------------------------
 # Chained skip-fan phases with the feature axis sharded: chaining
 # (engine.lk._chained_dispatch) composes with feature sharding because
-# seeds are per-feature — each chip seeds its own shard from its own
+# seeds are per-feature — each device seeds its own shard from its own
 # shard of the previous phase's result, still with zero collectives.
 # ---------------------------------------------------------------------------
 
 
-def _prep_specs(levels: int):
-    """shard_map specs for hoisted per-level preps: patch arrays are
-    (win, win, N) — sharded on the trailing feature axis — and the
-    normal-matrix vectors are (N,)."""
-    feat3 = PSpec(None, None, TARGET_AXIS)
-    feat1 = PSpec(TARGET_AXIS)
-    return tuple(
-        (feat3, feat3, feat3, feat1, feat1, feat1, feat1, feat1)
-        for _ in range(levels)
-    )
-
-
-def _sharded_lk_chain_prep(
-    mesh: Mesh, prev_levels, pts, *, dims, win, min_eig_thr, levels,
-    interpret=False,
-):
-    """Hoisted source-frame prep, feature-sharded (pallas flavor)."""
-    from ..kernels.lk_pallas import lk_prep_levels_pallas
-
-    def body(pts_local):
-        return lk_prep_levels_pallas(
-            prev_levels, pts_local, dims=dims, win=win,
-            min_eig_thr=min_eig_thr, interpret=interpret,
-        )
-
-    fn = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(PSpec(TARGET_AXIS),),
-        out_specs=_prep_specs(levels),
-        check_vma=False,
-    )
-    return fn(pts)
-
-
-def _sharded_lk_chain_phase(
-    mesh: Mesh, first, next_images_stacked, pts, src_nxt, src_status,
-    scales, *, pallas, dims, win, max_iters, eps2, min_eig_thr, levels,
-    interpret=False, blend="tent", coarse_cap=0, coarse_eps=0.0,
+@partial(jax.jit, static_argnames=("mesh", "win", "max_iters", "levels"))
+def sharded_lk_chain_phase(
+    mesh: Mesh, prev_levels, next_images_stacked, pts, src_nxt, src_status,
+    scales, eps2, min_eig_thr, *, win, max_iters, levels,
 ):
     """One chained phase (T slots), feature-sharded.
 
-    ``first`` is the hoisted prep tuple (pallas flavor, sharded on the
-    feature axis) or the replicated prev levels (XLA flavor); seeds
-    shard with the features."""
+    ``prev_levels`` and the target images are replicated; points and
+    seeds shard with the features."""
     feat = PSpec(TARGET_AXIS)
     tfeat = PSpec(None, TARGET_AXIS)
 
-    def body(first_l, pts_local, src_nxt_l, src_st_l):
+    def body(pts_local, src_nxt_l, src_st_l):
         init = jnp.where(
             src_st_l[..., None],
             (src_nxt_l - pts_local[None]) * scales[:, None, None],
             0.0,
         )
-        if pallas:
-            from ..kernels.lk_pallas import lk_iter_levels_pallas
-
-            return lk_iter_levels_pallas(
-                first_l, next_images_stacked, pts_local,
-                dims=dims, win=win, max_iters=max_iters, eps2=eps2,
-                interpret=interpret, init_flow=init, blend=blend,
-                coarse_cap=coarse_cap, coarse_eps=coarse_eps,
-            )
         return _lk._lk_all_levels_multi(
-            first_l, next_images_stacked, pts_local,
-            jnp.float32(eps2), jnp.float32(min_eig_thr), init_flow=init,
-            win=win, max_iters=max_iters, levels=levels,
+            prev_levels, next_images_stacked, pts_local, eps2, min_eig_thr,
+            init_flow=init, win=win, max_iters=max_iters, levels=levels,
         )
 
-    first_spec = (
-        _prep_specs(levels) if pallas
-        else jax.tree.map(lambda _: PSpec(), first)
-    )
     fn = shard_map(
         body,
         mesh=mesh,
-        in_specs=(first_spec, feat, tfeat, tfeat),
+        in_specs=(feat, tfeat, tfeat),
         out_specs=(tfeat, tfeat, tfeat),
         check_vma=False,
     )
-    return fn(first, pts, src_nxt, src_status)
-
-
-_sharded_lk_chain_prep_jit = partial(
-    jax.jit,
-    static_argnames=("mesh", "dims", "win", "min_eig_thr", "levels",
-                     "interpret"),
-)(_sharded_lk_chain_prep)
-
-
-def sharded_lk_chain_prep(mesh, prev_levels, pts, **kw):
-    """Jitted on real backends; interpret mode (CPU tests) stays eager —
-    jit-of-shard_map-of-interpreted-pallas miscomputes."""
-    fn = (
-        _sharded_lk_chain_prep
-        if kw.get("interpret") else _sharded_lk_chain_prep_jit
-    )
-    return fn(mesh, prev_levels, pts, **kw)
-
-
-_sharded_lk_chain_phase_jit = partial(
-    jax.jit,
-    static_argnames=("mesh", "pallas", "dims", "win", "max_iters", "eps2",
-                     "min_eig_thr", "levels", "interpret", "blend",
-                     "coarse_cap", "coarse_eps"),
-)(_sharded_lk_chain_phase)
-
-
-def sharded_lk_chain_phase(mesh, first, next_images_stacked, pts, src_nxt,
-                           src_status, scales, **kw):
-    """Jitted on real backends; eager in interpret mode (see above)."""
-    fn = (
-        _sharded_lk_chain_phase
-        if kw.get("interpret") and kw.get("pallas")
-        else _sharded_lk_chain_phase_jit
-    )
-    return fn(mesh, first, next_images_stacked, pts, src_nxt, src_status,
-              scales, **kw)
+    return fn(pts, src_nxt, src_status)

@@ -1,15 +1,15 @@
-"""Multi-chip sharding of the bundle-adjustment hot path.
+"""Multi-device sharding of the bundle-adjustment hot path.
 
 The reference is a single-node CPU program whose BA edge sweep is a TBB
 ``parallel_for`` with atomic scatter-adds into a shared sparse matrix
-(cpp/pnp/lev_marq.h:653-771).  The TPU-native scale-out story (SURVEY.md
+(cpp/pnp/lev_marq.h:653-771).  The scale-out design (SURVEY.md
 §2.4, §5.8) replaces that shared-memory reduction with a device mesh:
 
-- flow **edges are sharded across chips** (the data-parallel axis — each
+- flow **edges are sharded across devices** (the data-parallel axis — each
   edge's residual block is independent);
-- every chip evaluates its edge shard's residuals/Jacobians and
+- every device evaluates its edge shard's residuals/Jacobians and
   accumulates a **local dense JᵀJ / Jᵀr**;
-- one ``psum`` over the ICI reduces the normal equations — this is the
+- one ``psum`` over the interconnect reduces the normal equations — this is the
   only communication in the whole iteration (P ≤ 9·F parameters, a few
   MB at most);
 - the damped Cholesky solve + parameter step run replicated (identical
@@ -91,7 +91,7 @@ def _local_normal_equations(
     JtJ = JtJ.at[rows[:, :, None], rows[:, None, :]].add(JtJ_pair)
     Jtr = jnp.zeros((Pn,), jnp.float32).at[rows].add(Jtr_pair)
 
-    # The single collective: reduce partial normal equations over ICI.
+    # The single collective: reduce partial normal equations over the mesh.
     JtJ = jax.lax.psum(JtJ, EDGE_AXIS)
     Jtr = jax.lax.psum(Jtr, EDGE_AXIS)
     return JtJ, Jtr

@@ -26,7 +26,7 @@ PKG = ROOT / "polychase_tpu"
 SKIP_DIRS = {"__pycache__"}
 
 SHIM = '''\
-"""Polychase TPU Blender add-on (generated loader shim)."""
+"""Polychase Blender add-on (generated loader shim)."""
 
 import os
 import sys

@@ -1,9 +1,8 @@
 """Block-tridiagonal (banded) LM solve: parity with the dense path.
 
 The skip pattern bounds BA edge span, so the damped normal matrix is
-block-tridiagonal in span-sized super-blocks; the roofline study
-(BENCHMARKS.md) identified the dense Cholesky as the refine iteration's
-bound and this solve replaces it with a lax.scan of small blocks.
+block-tridiagonal in span-sized super-blocks; this solve replaces the
+dense Cholesky with a lax.scan of small blocks.
 """
 
 import numpy as np

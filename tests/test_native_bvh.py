@@ -96,3 +96,47 @@ def test_native_fn_binding_cache():
     assert f1 is not None and f1 is f2  # argtypes of the first call win
     assert native.native_fn("no_such_symbol_xyz", None, []) is None
     assert "no_such_symbol_xyz" in native._FN_CACHE
+
+
+def test_library_built_from_source(tmp_path):
+    """The library comes from bvh.cc, not from a shipped binary."""
+    import ctypes
+
+    out = native.build_library(str(tmp_path / "bvh_test.so"))
+    lib = ctypes.CDLL(out)
+    for sym in ("bvh_build", "bvh_raycast", "bvh_free", "pack_track_chunk",
+                "gftt_sort_suppress"):
+        assert hasattr(lib, sym), sym
+    assert [p.name for p in tmp_path.iterdir()] == ["bvh_test.so"]
+
+
+def test_build_failure_says_why(tmp_path, monkeypatch):
+    monkeypatch.setattr(native, "_SRC", str(tmp_path / "missing.cc"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.build_library(str(tmp_path / "bvh_test.so"))
+    assert not list(tmp_path.iterdir())  # no half-written library left
+
+
+@pytest.mark.parametrize("n_lat,n_lon", [(32, 64), (128, 256)])
+def test_rays_through_shared_edges_hit_the_near_side(n_lat, n_lon):
+    """A ray through the edge two triangles share hits one of them, so
+    it never slips through to the far side of a closed mesh (Embree's
+    test is watertight; a float32 Möller–Trumbore is not)."""
+    mesh = make_sphere_mesh(n_lat, n_lon)
+    v = np.asarray(mesh.vertices, np.float64)
+    tris = np.asarray(mesh.triangles)
+    caster = native.BvhRaycaster(v.astype(np.float32), tris)
+    origin = np.array([0.3, -0.2, -4.0])
+    # Midpoints of every triangle edge on the camera's side.
+    a = v[tris]
+    mids = np.concatenate([(a[:, 0] + a[:, 1]) / 2, (a[:, 1] + a[:, 2]) / 2,
+                           (a[:, 2] + a[:, 0]) / 2])
+    front = np.einsum("ij,ij->i", mids, mids - origin) < -0.2
+    mids = mids[front]
+    dirs = (mids - origin).astype(np.float32)
+    origins = np.broadcast_to(origin, dirs.shape).astype(np.float32)
+    _, _, _, t, prim = caster.raycast(origins, dirs)
+    assert (prim != 0xFFFFFFFF).all()
+    # The midpoint sits at t = 1 along its direction (the chord's midpoint
+    # is inside the sphere, so the near surface comes just before it).
+    assert t.max() < 1.0 + 1e-4

@@ -67,71 +67,6 @@ def test_sharded_lk_multi_matches_single(rng):
     np.testing.assert_allclose(err_s[both], err_r[both], atol=1e-4)
 
 
-def test_sharded_pallas_lk_matches_single(rng):
-    """The Pallas kernel path under shard_map (interpret mode) matches the
-    unsharded Pallas program per target."""
-    from polychase_tpu.kernels import lk_pallas as lkp
-    from polychase_tpu.parallel.analyze import sharded_lk_multi_pallas
-
-    frames = _clip(rng, n=9)
-    opts = lk.LKOptions()
-    levels = 2
-    pyrs = [
-        lk._prepare_levels_pallas(
-            lk.build_pyramid(jnp.asarray(f, jnp.float32), levels),
-            levels=levels,
-        )
-        for f in frames
-    ]
-    h, w = frames[0].shape
-    dims = ((h, w), ((h + 1) // 2, (w + 1) // 2))
-    pts = rng.uniform((12, 12), (w - 12, h - 12), (128, 2)).astype(
-        np.float32
-    )
-    prev = pyrs[4]
-    target_ids = [0, 1, 2, 3, 5, 6, 7, 8]
-
-    # coarse_eps pinned to 0 (exact termination): this test pins the
-    # sharding MECHANISM.  At the production default (0.02) group
-    # composition changes where coarse levels stop, so seeds — and the
-    # level-0 optima they select — drift up to ~0.15 px between
-    # shardings (well inside the 0.5 px quality contract; documented in
-    # kernels/lk_pallas.py coarse_level_eps).
-    args = dict(
-        dims=dims, win=opts.window_size, max_iters=10,
-        eps2=float(opts.term_epsilon**2),
-        min_eig_thr=float(opts.min_eigen_threshold), interpret=True,
-        coarse_eps=0.0,
-    )
-    ref = lkp.lk_all_levels_pallas(
-        tuple(prev[:levels]),
-        tuple(
-            tuple(pyrs[t][lvl][0] for t in target_ids)
-            for lvl in range(levels)
-        ),
-        jnp.asarray(pts), **args,
-    )
-
-    mesh = make_target_mesh()
-    stacked = tuple(
-        jnp.stack([pyrs[t][lvl][0] for t in target_ids])
-        for lvl in range(levels)
-    )
-    sharded = sharded_lk_multi_pallas(
-        mesh, tuple(prev[:levels]), shard_targets(mesh, stacked),
-        jnp.asarray(pts), **args,
-    )
-    nxt_r, st_r, err_r = jax.device_get(ref)
-    nxt_s, st_s, err_s = jax.device_get(sharded)
-    assert np.array_equal(st_r, st_s)
-    # 1e-3 px, not 1e-5: sharding changes group composition, so the
-    # group-level early exit stops features after different iteration
-    # counts; the dynamic-span blend (narrow=2 default since round 4)
-    # reassociates sums per-span, letting those sub-ulp differences
-    # surface at ~4e-4 px.  Far below the 0.01 px f16-transfer noise.
-    np.testing.assert_allclose(nxt_s[st_r], nxt_r[st_r], atol=1e-3)
-
-
 def test_feature_sharded_lk_matches_single(rng):
     """Feature-axis sharding (the axis that grows with resolution) must
     match the unsharded multi-target solve exactly on the status mask and
@@ -175,57 +110,6 @@ def test_feature_sharded_lk_matches_single(rng):
     assert np.array_equal(st_r, st_s)
     np.testing.assert_allclose(nxt_s[st_r], nxt_r[st_r], atol=1e-5)
     np.testing.assert_allclose(err_s[st_r], err_r[st_r], atol=1e-4)
-
-
-def test_feature_sharded_pallas_matches_single(rng):
-    """Pallas kernel path, feature axis sharded (interpret mode)."""
-    from polychase_tpu.kernels import lk_pallas as lkp
-    from polychase_tpu.parallel.analyze import sharded_lk_multi_pallas_feat
-
-    frames = _clip(rng, n=9)
-    opts = lk.LKOptions()
-    levels = 2
-    pyrs = [
-        lk._prepare_levels_pallas(
-            lk.build_pyramid(jnp.asarray(f, jnp.float32), levels),
-            levels=levels,
-        )
-        for f in frames
-    ]
-    h, w = frames[0].shape
-    dims = ((h, w), ((h + 1) // 2, (w + 1) // 2))
-    # N = 1024 = 8 devices × one 128-lane group each
-    pts = rng.uniform((12, 12), (w - 12, h - 12), (1024, 2)).astype(
-        np.float32
-    )
-    prev = pyrs[4]
-    target_ids = [0, 2, 6, 8]
-    # coarse_eps=0: see test_sharded_pallas_lk_matches_single — the
-    # mechanism is pinned under exact termination.
-    args = dict(
-        dims=dims, win=opts.window_size, max_iters=10,
-        eps2=float(opts.term_epsilon**2),
-        min_eig_thr=float(opts.min_eigen_threshold), interpret=True,
-        coarse_eps=0.0,
-    )
-    stacked = tuple(
-        jnp.stack([pyrs[t][lvl][0] for t in target_ids])
-        for lvl in range(levels)
-    )
-    ref = lkp.lk_all_levels_pallas(
-        tuple(prev[:levels]), stacked, jnp.asarray(pts), **args,
-    )
-    mesh = make_target_mesh()
-    sharded = sharded_lk_multi_pallas_feat(
-        mesh, tuple(prev[:levels]), stacked, jnp.asarray(pts), **args,
-    )
-    nxt_r, st_r, err_r = jax.device_get(ref)
-    nxt_s, st_s, err_s = jax.device_get(sharded)
-    assert np.array_equal(st_r, st_s)
-    # 1e-3, not 1e-5: see test_sharded_pallas_lk_matches_single — group
-    # composition changes under feature sharding, and the narrow-blend
-    # default reassociates the converged iterates at ~4e-4 px.
-    np.testing.assert_allclose(nxt_s[st_r], nxt_r[st_r], atol=1e-3)
 
 
 def test_pipeline_feature_shard_routing(tmp_path, monkeypatch):

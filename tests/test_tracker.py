@@ -378,7 +378,7 @@ def test_scan_chain_callback_cancel(tmp_path, rng):
 def test_function_tol_tracks_like_reference_termination(
     tmp_path, rng, monkeypatch
 ):
-    """The tracker's default relative function tolerance (a TPU-side
+    """The tracker's default relative function tolerance (a
     termination aid for the reference's f32 λ-doubling rejection tail,
     cpp/pnp/lev_marq.h:146-227) must cut LM iterations without moving
     the trajectory: POLYCHASE_TRACK_FTOL=0 restores the reference-exact

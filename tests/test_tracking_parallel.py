@@ -113,19 +113,18 @@ def test_parallel_tracking_matches_sequential(scene, use_mesh):
         np.testing.assert_allclose(t_par, t_seq, atol=2e-4)
 
 
-def test_multichip_scan_chain_tpu_lowering(scene):
-    """The per-device program of track_segments with the Pallas PnP
-    kernel routed (vmap over segments -> custom_vmap batch grid ->
-    lax.scan chain) must pass full Mosaic verification.  This is the
-    program real multi-chip hardware runs; interpret-mode tests do not
-    catch Mosaic layout errors (CLAUDE.md)."""
+def test_multichip_scan_chain_cuda_lowering(scene):
+    """The per-device program of track_segments (vmap over segments ->
+    lax.scan chain -> XLA LM ``while_loop``) lowers for CUDA, as XLA
+    code and library calls with no hand-written kernel.  This is the program a multi-GPU host
+    runs; the CPU tests run it only on the CPU backend."""
     from polychase_tpu.engine.pnp import normalize_bundle_opts
     from polychase_tpu.engine.tracker import _scan_track_fn
 
     opts = BundleOptions(loss_type=CAUCHY, loss_scale=1.0)
     run = _scan_track_fn(
         False, False, tuple(normalize_bundle_opts(opts)),
-        packed_idx=True, pallas_pnp=True,
+        packed_idx=True,
     )
     S, F, n, Gp, K, Kmax = 2, 5, 4, 8, 128, 128
     xs = (
@@ -154,7 +153,10 @@ def test_multichip_scan_chain_tpu_lowering(scene):
         xs, scene["mesh"], eye, eye,
         jnp.zeros((5,), jnp.float32),
     )
-    jax.export.export(jax.jit(batched), platforms=("tpu",))(*args)
+    exp = jax.export.export(jax.jit(batched), platforms=("cuda",))(*args)
+    text = exp.mlir_module()
+    assert "stablehlo.while" in text
+    assert "triton" not in text
 
 
 def test_mixed_clip_segments_rejected(scene):
